@@ -3,7 +3,7 @@
  * randomness comes from the deterministic surf stream, ref:
  * src/rng.c:36-77, README.md:48) through one fixed op sequence and dumps
  * the DECODED outputs as JSON.  The frozen output (golden_logn11.json)
- * is diffed against the TPU engine replaying the identical surf
+ * is diffed against the JAX engine replaying the identical surf
  * consumption order in tests/test_golden.py — the one check that would
  * catch a systematic error shared by the engine and its python-int
  * oracle (VERDICT r2 #4).

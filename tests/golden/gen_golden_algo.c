@@ -3,7 +3,7 @@
  * stream) through the reference's own he-algo.c compositions at the
  * reference DEFAULT parameters (ref: tests/gpqhe.c:1296-1322) and dumps
  * decoded outputs as JSON.  tests/test_golden_algo.py replays the
- * identical surf-consumption order on the TPU engine.
+ * identical surf-consumption order on the JAX engine.
  *
  * Three modes (separate binary runs => separate fresh surf streams):
  *

@@ -12,11 +12,11 @@ import math
 import numpy as np
 import pytest
 
-from gpqhe_tpu.algo import linalg, nonlinear
-from gpqhe_tpu.context import HeContext
-from gpqhe_tpu.ring import sample as smp
-from gpqhe_tpu.scheme.engine import CKKS
-from gpqhe_tpu.substrate.surf import Surf
+from gpqhe_jax.algo import linalg, nonlinear
+from gpqhe_jax.context import HeContext
+from gpqhe_jax.ring import sample as smp
+from gpqhe_jax.scheme.engine import CKKS
+from gpqhe_jax.substrate.surf import Surf
 
 TOL = 1e-5
 
@@ -208,7 +208,7 @@ def test_log(eng, keys):
 def test_rlsin(eng, keys):
     """sin(a*ct)/a via exp/conj (ref: tests/gpqhe.c test_rlsin:1156), against
     the exact exp-series model at 1e-5 and libm at the truncation level."""
-    from gpqhe_tpu.bootstrap import rlsin
+    from gpqhe_jax.bootstrap import rlsin
 
     pk, sk, rlk, ck, _ = keys
     s = eng.ctx.slots
@@ -225,7 +225,7 @@ def test_rlsin(eng, keys):
 def test_rlsin_reference_shape(eng, keys):
     """The reference's rlsin regime: message m/Delta, output == message at
     CHECK_DIFF 1e-5 (sin(x) ~ x; ref: tests/gpqhe.c:1156-1200)."""
-    from gpqhe_tpu.bootstrap import rlsin
+    from gpqhe_jax.bootstrap import rlsin
 
     pk, sk, rlk, ck, _ = keys
     s = eng.ctx.slots
@@ -267,7 +267,7 @@ def test_cmppt(eng, keys):
 def test_gemv_hoisted(eng, keys):
     """Double-hoisted gemv agrees with the classic path and the plaintext
     oracle (one key switch per giant step; CKKS.hoisted_gemv_fn)."""
-    from gpqhe_tpu.algo.linalg import HoistedGemvPlan
+    from gpqhe_jax.algo.linalg import HoistedGemvPlan
 
     e, pk, sk, rlk, ck, rk = eng, *keys
     slots = e.ctx.slots
@@ -291,7 +291,7 @@ def test_gemv_hoisted_slots256():
     """Hoisted gemv at slots=256 (full packing, logn=9): the streamed
     slab-per-giant-step design keeps compile time and memory flat in slots
     (one prep + one step program; 16 slab uploads of n1=16 diagonals)."""
-    from gpqhe_tpu.algo.linalg import HoistedGemvPlan
+    from gpqhe_jax.algo.linalg import HoistedGemvPlan
 
     slots = 256
     ctx = HeContext(logn=9, q=1 << 120, slots=slots, Delta=1 << 30)

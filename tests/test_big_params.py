@@ -12,10 +12,10 @@ import pytest
 
 pytestmark = pytest.mark.slow
 
-from gpqhe_tpu.algo import nonlinear
-from gpqhe_tpu.context import HeContext
-from gpqhe_tpu.scheme.engine import CKKS
-from gpqhe_tpu.substrate.surf import Surf
+from gpqhe_jax.algo import nonlinear
+from gpqhe_jax.context import HeContext
+from gpqhe_jax.scheme.engine import CKKS
+from gpqhe_jax.substrate.surf import Surf
 
 
 def test_cmp_logn15_reference_config():
@@ -24,7 +24,7 @@ def test_cmp_logn15_reference_config():
     pk, sk = eng.keypair()
     rlk = eng.genrlk(sk)
     # the reference's message shape (ref: tests/gpqhe.c:1040-1043)
-    from gpqhe_tpu.ring import sample as smp
+    from gpqhe_jax.ring import sample as smp
     m0 = smp.sample_z01vec(eng.rng, ctx.slots)
     m0 = smp.sample_z01vec(eng.rng, ctx.slots)  # reference samples twice
     a = m0.real + 0.5

@@ -18,12 +18,12 @@ import pytest
 
 pytestmark = pytest.mark.slow  # many per-level compiles
 
-from gpqhe_tpu import bootstrap as bs
-from gpqhe_tpu.context import HeContext
-from gpqhe_tpu.ring import sample as smp
-from gpqhe_tpu.ring.canemb import invcanemb
-from gpqhe_tpu.scheme.engine import CKKS
-from gpqhe_tpu.substrate.surf import Surf
+from gpqhe_jax import bootstrap as bs
+from gpqhe_jax.context import HeContext
+from gpqhe_jax.ring import sample as smp
+from gpqhe_jax.ring.canemb import invcanemb
+from gpqhe_jax.scheme.engine import CKKS
+from gpqhe_jax.substrate.surf import Surf
 
 
 def test_coeff2slot():

@@ -21,11 +21,11 @@ import pytest
 
 pytestmark = pytest.mark.slow
 
-from gpqhe_tpu import bootstrap as bs
-from gpqhe_tpu.context import HeContext
-from gpqhe_tpu.ring import sample as smp
-from gpqhe_tpu.scheme.engine import CKKS
-from gpqhe_tpu.substrate.surf import Surf
+from gpqhe_jax import bootstrap as bs
+from gpqhe_jax.context import HeContext
+from gpqhe_jax.ring import sample as smp
+from gpqhe_jax.scheme.engine import CKKS
+from gpqhe_jax.substrate.surf import Surf
 
 
 def test_bootstrap_reference_scale():

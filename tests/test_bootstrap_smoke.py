@@ -13,11 +13,11 @@ so a small base modulus keeps the amplification ~2^6 instead of ~2^17.
 
 import numpy as np
 
-from gpqhe_tpu import bootstrap as bs
-from gpqhe_tpu.context import HeContext
-from gpqhe_tpu.ring import sample as smp
-from gpqhe_tpu.scheme.engine import CKKS
-from gpqhe_tpu.substrate.surf import Surf
+from gpqhe_jax import bootstrap as bs
+from gpqhe_jax.context import HeContext
+from gpqhe_jax.ring import sample as smp
+from gpqhe_jax.scheme.engine import CKKS
+from gpqhe_jax.substrate.surf import Surf
 
 
 def test_bootstrap_smoke():

@@ -10,9 +10,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gpqhe_tpu.context import PolyContext
-from gpqhe_tpu.ops import rns as rns_ops
-from gpqhe_tpu.substrate import bigint
+from gpqhe_jax.context import PolyContext
+from gpqhe_jax.ops import rns as rns_ops
+from gpqhe_jax.substrate import bigint
 
 
 def test_crt_9bit_primes():
@@ -40,7 +40,7 @@ def test_crt_9bit_primes():
 
 def test_crt_ntt_small_primes():
     """NTT still works over the 9-bit chain (p = 1 mod 2n holds)."""
-    from gpqhe_tpu.ops.ntt import intt, ntt
+    from gpqhe_jax.ops.ntt import intt, ntt
 
     pctx = PolyContext(4, q=1 << 8, logp=9, dim_cap=3)
     ba = rns_ops.make_basis_arrays(pctx, 3)

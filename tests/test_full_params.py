@@ -8,10 +8,10 @@ generates 18 switching keys at n=16384."""
 import numpy as np
 import pytest
 
-from gpqhe_tpu.context import HeContext
-from gpqhe_tpu.ring import sample as smp
-from gpqhe_tpu.scheme.engine import CKKS
-from gpqhe_tpu.substrate.surf import Surf
+from gpqhe_jax.context import HeContext
+from gpqhe_jax.ring import sample as smp
+from gpqhe_jax.scheme.engine import CKKS
+from gpqhe_jax.substrate.surf import Surf
 
 pytestmark = pytest.mark.slow
 

@@ -4,7 +4,7 @@ tests/golden/golden_logn11.json holds decoded outputs produced by the
 UNMODIFIED reference sources compiled with -DSUPERCOP (deterministic surf,
 ref: src/rng.c:36-77) against the system libgcrypt — see
 tests/golden/gen_golden.c + generate.sh.  This test replays the IDENTICAL
-surf-consumption sequence on the TPU engine and diffs the decoded values.
+surf-consumption sequence on the JAX engine and diffs the decoded values.
 
 Unlike tests/test_kat.py (whose python-int oracle replays the engine's own
 conventions), this pins the engine against an independent implementation:
@@ -29,10 +29,10 @@ import os
 
 import numpy as np
 
-from gpqhe_tpu.context import HeContext
-from gpqhe_tpu.ring import sample as smp
-from gpqhe_tpu.scheme.engine import CKKS
-from gpqhe_tpu.substrate.surf import Surf
+from gpqhe_jax.context import HeContext
+from gpqhe_jax.ring import sample as smp
+from gpqhe_jax.scheme.engine import CKKS
+from gpqhe_jax.substrate.surf import Surf
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "golden_logn11.json")
 
@@ -64,7 +64,7 @@ def test_golden_vs_reference_binary():
     def dcd(ct):
         return eng.dcd(eng.dec(ct, sk))
 
-    from gpqhe_tpu import params
+    from gpqhe_jax import params
     # every op routed through a key switch (mul's relin, conj, rot) carries
     # the representative-freedom divide-round divergence — see docstring
     tol_ks = (params.BLKSIZ + 2) / ctx.Delta    # 6.3e-5 here

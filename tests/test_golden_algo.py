@@ -34,10 +34,10 @@ import os
 import numpy as np
 import pytest
 
-from gpqhe_tpu.context import HeContext
-from gpqhe_tpu.ring import sample as smp
-from gpqhe_tpu.scheme.engine import CKKS
-from gpqhe_tpu.substrate.surf import Surf
+from gpqhe_jax.context import HeContext
+from gpqhe_jax.ring import sample as smp
+from gpqhe_jax.scheme.engine import CKKS
+from gpqhe_jax.substrate.surf import Surf
 
 pytestmark = pytest.mark.slow   # reference-default rings (logn=14/15)
 
@@ -52,7 +52,7 @@ def _load(name):
 
 def test_golden_algo_linear():
     """gemv/sum/idx/nrm2 at logn=14, logq=438, slots=16, Delta=2^50."""
-    from gpqhe_tpu.algo.linalg import HoistedGemvPlan, gemv, he_idx, he_nrm2, he_sum
+    from gpqhe_jax.algo.linalg import HoistedGemvPlan, gemv, he_idx, he_nrm2, he_sum
 
     g = _load("golden_algo_linear.json")
     ctx = HeContext(logn=14, q=1 << 438, slots=16, Delta=1 << 50)
@@ -89,7 +89,7 @@ def test_golden_algo_linear():
 def test_golden_algo_nonlinear():
     """inv/exp/sigmoid/log/sqrt at logn=14, logq=438, slots=4, Delta=2^30,
     iter=5 (sqrt 6)."""
-    from gpqhe_tpu.algo.nonlinear import he_exp, he_inv, he_log, he_sigmoid, he_sqrt
+    from gpqhe_jax.algo.nonlinear import he_exp, he_inv, he_log, he_sigmoid, he_sqrt
 
     g = _load("golden_algo_nonlinear.json")
     ctx = HeContext(logn=14, q=1 << 438, slots=4, Delta=1 << 30)
@@ -125,7 +125,7 @@ def test_golden_algo_nonlinear():
 
 def test_golden_algo_cmp():
     """cmp at logn=15, logq=881, slots=4, Delta=2^30, iter=5, alpha=2."""
-    from gpqhe_tpu.algo.nonlinear import he_cmp
+    from gpqhe_jax.algo.nonlinear import he_cmp
 
     g = _load("golden_algo_cmp.json")
     ctx = HeContext(logn=15, q=1 << 881, slots=4, Delta=1 << 30)

@@ -16,12 +16,12 @@ he-automorphism.c:40-115 at exact-integer level.
 import numpy as np
 import pytest
 
-from gpqhe_tpu import params
-from gpqhe_tpu.context import HeContext
-from gpqhe_tpu.ring import sample as smp
-from gpqhe_tpu.scheme.engine import CKKS
-from gpqhe_tpu.substrate import bigint
-from gpqhe_tpu.substrate.surf import Surf
+from gpqhe_jax import params
+from gpqhe_jax.context import HeContext
+from gpqhe_jax.ring import sample as smp
+from gpqhe_jax.scheme.engine import CKKS
+from gpqhe_jax.substrate import bigint
+from gpqhe_jax.substrate.surf import Surf
 
 
 # ---------------------------------------------------------------------------

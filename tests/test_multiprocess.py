@@ -1,6 +1,6 @@
 """Multi-process (multi-host analogue) distribution tests.
 
-SURVEY.md §5 names DCN collectives across hosts as the TPU-native equivalent
+SURVEY.md §5 names collectives across hosts as the JAX equivalent
 of a distributed backend.  tools/mp_mul_rs.py runs the fused mul_rs program
 over a (limb, coeff, batch) = (2, 2, 2) mesh spanning TWO OS processes
 (jax.distributed + gloo CPU collectives, 4 virtual devices each), with keys

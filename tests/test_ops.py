@@ -1,7 +1,7 @@
 """Kernel-layer KATs: modmath, NTT (vs schoolbook negacyclic product),
 limb arithmetic, RNS decompose/reconstruct (vs python-int oracle).
 
-TPU analogue of the reference's tests/polymul.c (PARI/GP oracle,
+Device analogue of the reference's tests/polymul.c (PARI/GP oracle,
 ref: tests/polymul.c:84-124) and tests/crt.c (shrunken-param CRT roundtrips,
 ref: tests/crt.c:94-214).
 """
@@ -12,12 +12,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gpqhe_tpu.context import PolyContext
-from gpqhe_tpu.ops import limbs as lb
-from gpqhe_tpu.ops import rns as rns_ops
-from gpqhe_tpu.ops.modmath import mont_mul, mulmod, to_mont
-from gpqhe_tpu.ops.ntt import intt, ntt
-from gpqhe_tpu.substrate import bigint
+from gpqhe_jax.context import PolyContext
+from gpqhe_jax.ops import limbs as lb
+from gpqhe_jax.ops import rns as rns_ops
+from gpqhe_jax.ops.modmath import mont_mul, mulmod, to_mont
+from gpqhe_jax.ops.ntt import intt, ntt
+from gpqhe_jax.substrate import bigint
 
 
 @pytest.fixture(scope="module")
@@ -228,7 +228,7 @@ def test_geq_const_wide_bases():
     """Hierarchical geq_const vs a python-int oracle at widths around the
     62-limb single-round exactness boundary (logn=15/logq=881 key-switch
     reaches K=68; the old single-round trick silently required K <= 62)."""
-    from gpqhe_tpu.ops import limbs as lb
+    from gpqhe_jax.ops import limbs as lb
 
     rng = np.random.default_rng(7)
     for k in (3, 62, 63, 68, 124, 125):

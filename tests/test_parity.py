@@ -9,14 +9,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gpqhe_tpu.context import HeContext, PolyContext
-from gpqhe_tpu.ops.modmath import barrett_inv, barrett_reduce, mulhilo64
-from gpqhe_tpu.ring import sample as smp
-from gpqhe_tpu.scheme.engine import CKKS
-from gpqhe_tpu.substrate.rng_backends import Aes256CtrDrbg, UrandomRng, \
+from gpqhe_jax.context import HeContext, PolyContext
+from gpqhe_jax.ops.modmath import barrett_inv, barrett_reduce, mulhilo64
+from gpqhe_jax.ring import sample as smp
+from gpqhe_jax.scheme.engine import CKKS
+from gpqhe_jax.substrate.rng_backends import Aes256CtrDrbg, UrandomRng, \
     aes256_ecb_encrypt_block
-from gpqhe_tpu.substrate.surf import Surf
-from gpqhe_tpu.utils import info, serialize
+from gpqhe_jax.substrate.surf import Surf
+from gpqhe_jax.utils import info, serialize
 
 
 def test_aes256_fips197_vector():

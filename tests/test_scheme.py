@@ -13,11 +13,11 @@ homomorphic computation -> decrypt -> max-norm diff < 1e-5
 import numpy as np
 import pytest
 
-from gpqhe_tpu.context import HeContext
-from gpqhe_tpu.ring import sample as smp
-from gpqhe_tpu.ring.canemb import canemb, invcanemb
-from gpqhe_tpu.scheme.engine import CKKS
-from gpqhe_tpu.substrate.surf import Surf
+from gpqhe_jax.context import HeContext
+from gpqhe_jax.ring import sample as smp
+from gpqhe_jax.ring.canemb import canemb, invcanemb
+from gpqhe_jax.scheme.engine import CKKS
+from gpqhe_jax.substrate.surf import Surf
 
 TOL = 1e-5
 
@@ -69,7 +69,7 @@ def test_ecd_product_norm(eng):
     dim = (2 * ctx.q[ctx.L].bit_length()) // ctx.logp_prime + 1
     prod = eng.ring.poly_mul(pt1.m, pt2.m, dim, 32 * eng.kq, eng.kq,
                              signed_a=pt1.mod_bits, signed_b=pt2.mod_bits)
-    from gpqhe_tpu.scheme.types import Plaintext
+    from gpqhe_jax.scheme.types import Plaintext
     pt = Plaintext(nu=pt1.nu * pt2.nu, m=prod, mod_bits=32 * eng.kq)
     assert dist(eng.dcd(pt), m1 * m2) < TOL
 

@@ -7,7 +7,7 @@ import pytest
 import numpy as np
 import pytest
 
-from gpqhe_tpu.substrate import bigint, fips202, surf
+from gpqhe_jax.substrate import bigint, fips202, surf
 
 # Expected bytes produced by the reference rng.c compiled with -DSUPERCOP
 # (ref: src/rng.c:32-78), chunks of 13/64/13/64 bytes.
@@ -78,7 +78,7 @@ def test_native_substrate_matches_numpy():
     scalar tail — has an independent in-suite oracle (advisor r4)."""
     import numpy as np
 
-    from gpqhe_tpu.substrate import native as nat
+    from gpqhe_jax.substrate import native as nat
 
     if nat.get_lib() is None:
         pytest.skip("no C compiler")
@@ -110,11 +110,11 @@ def test_op_trace():
     the libpmu-role instrumentation)."""
     import numpy as np
 
-    from gpqhe_tpu.context import HeContext
-    from gpqhe_tpu.ring import sample as smp
-    from gpqhe_tpu.scheme.engine import CKKS
-    from gpqhe_tpu.substrate.surf import Surf
-    from gpqhe_tpu.utils import trace
+    from gpqhe_jax.context import HeContext
+    from gpqhe_jax.ring import sample as smp
+    from gpqhe_jax.scheme.engine import CKKS
+    from gpqhe_jax.substrate.surf import Surf
+    from gpqhe_jax.utils import trace
 
     ctx = HeContext(logn=5, q=1 << 100, slots=4, Delta=1 << 30)
     eng = CKKS(ctx, rng=Surf())

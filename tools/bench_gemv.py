@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Classic vs double-hoisted BSGS gemv latency on the real TPU.
+"""Classic vs double-hoisted BSGS gemv latency on the default device.
 
 Usage: python tools/bench_gemv.py [logn] [logq] [slots]
 """
@@ -22,11 +22,11 @@ def main():
     logq = int(sys.argv[2]) if len(sys.argv) > 2 else 109
     slots = int(sys.argv[3]) if len(sys.argv) > 3 else 4
     t0 = time.time()
-    from gpqhe_tpu.algo import linalg
-    from gpqhe_tpu.context import HeContext
-    from gpqhe_tpu.ring import sample as smp
-    from gpqhe_tpu.scheme.engine import CKKS
-    from gpqhe_tpu.substrate.surf import Surf
+    from gpqhe_jax.algo import linalg
+    from gpqhe_jax.context import HeContext
+    from gpqhe_jax.ring import sample as smp
+    from gpqhe_jax.scheme.engine import CKKS
+    from gpqhe_jax.substrate.surf import Surf
 
     ctx = HeContext(logn=logn, q=1 << logq, slots=slots, Delta=1 << 30)
     eng = CKKS(ctx, rng=Surf())

@@ -1,7 +1,7 @@
 #!/usr/bin/env python
-"""Ciphertext mult+rescale latency on the real TPU (BASELINE.md north star).
+"""Ciphertext mult+rescale latency on the default device.
 
-Usage: python tools/bench_mul.py [logn] [logq]
+Usage: python tools/bench_mul.py [logn] [logq] [butterfly|matmul] [logp]
 Measures the warm per-call latency of the fused he_mul program and of
 rescale at top level, plus NTT throughput context.
 """
@@ -29,12 +29,12 @@ def main():
     impl = sys.argv[3] if len(sys.argv) > 3 else "butterfly"
     logp = int(sys.argv[4]) if len(sys.argv) > 4 else 59
     t0 = time.time()
-    from gpqhe_tpu.context import HeContext
-    from gpqhe_tpu.ring import sample as smp
-    from gpqhe_tpu.scheme.engine import CKKS
-    from gpqhe_tpu.substrate.surf import Surf
-    from gpqhe_tpu.utils.pmu import time_jitted
-    from gpqhe_tpu.utils.xla import enable_persistent_cache
+    from gpqhe_jax.context import HeContext
+    from gpqhe_jax.ring import sample as smp
+    from gpqhe_jax.scheme.engine import CKKS
+    from gpqhe_jax.substrate.surf import Surf
+    from gpqhe_jax.utils.pmu import time_jitted
+    from gpqhe_jax.utils.xla import enable_persistent_cache
     enable_persistent_cache()
 
     ctx = HeContext(logn=logn, q=1 << logq, slots=16, Delta=1 << 50, logp=logp)

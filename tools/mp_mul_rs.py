@@ -7,8 +7,8 @@ CPU devices; a jax.distributed (gloo) runtime joins them, one
 (limb, coeff, batch) = (2, 2, 2) mesh spans BOTH processes, and the fused
 mult+relin+rescale program (parallel/mesh.py build_sharded_mul_rs) executes
 with its limb-axis psum and coeff-axis ppermute collectives crossing the
-process boundary — exactly the shape multi-host TPU execution takes, with
-DCN in place of the local socket.  Keys and ciphertexts move between the
+process boundary — the shape multi-host execution takes, with the local
+socket in place of the host network.  Keys and ciphertexts move between the
 processes through utils/serialize (the key/ct exchange format the reference
 lacks entirely).
 
@@ -39,22 +39,21 @@ def worker(rank: int, nproc: int, tmpdir: str, port: int) -> None:
                                + f" --xla_force_host_platform_device_count={LOCAL_DEVICES}").strip()
     sys.path.insert(0, HERE)
     import jax
-    jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
     jax.config.update("jax_cpu_collectives_implementation", "gloo")
     jax.distributed.initialize(coordinator_address=f"127.0.0.1:{port}",
                                num_processes=nproc, process_id=rank)
-    from gpqhe_tpu.utils.xla import enable_persistent_cache
+    from gpqhe_jax.utils.xla import enable_persistent_cache
     enable_persistent_cache()
     import numpy as np
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from gpqhe_tpu.context import HeContext
-    from gpqhe_tpu.parallel.mesh import build_sharded_mul_rs, make_he_mesh3
-    from gpqhe_tpu.ring import sample as smp
-    from gpqhe_tpu.scheme.engine import CKKS
-    from gpqhe_tpu.substrate.surf import Surf
-    from gpqhe_tpu.utils import serialize
+    from gpqhe_jax.context import HeContext
+    from gpqhe_jax.parallel.mesh import build_sharded_mul_rs, make_he_mesh3
+    from gpqhe_jax.ring import sample as smp
+    from gpqhe_jax.scheme.engine import CKKS
+    from gpqhe_jax.substrate.surf import Surf
+    from gpqhe_jax.utils import serialize
 
     assert len(jax.devices()) == nproc * LOCAL_DEVICES, \
         (len(jax.devices()), "global device enumeration failed")

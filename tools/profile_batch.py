@@ -1,11 +1,10 @@
 #!/usr/bin/env python
-"""Stage-by-stage attribution of the BATCHED mul_rs regression (round-4
-finding: batch=8 runs 27.4 ms/ct vs 8.14 ms single — 3.4x WORSE).
+"""Stage-by-stage attribution of the BATCHED mul_rs program.
 
 For each pipeline stage of mul_rs_batch_fn (engine.py), times the stage as
 its own jitted program at batch B and at B=1, and prints the per-ct scaling
-factor (ideal: <= 1.0x per ct; a stage whose per-ct time GROWS with B is the
-regression).
+factor (ideal: <= 1.0x per ct; a stage whose per-ct time GROWS with B does
+not amortize).
 
 Usage: python tools/profile_batch.py [logn] [logq] [B] [impl]
 """
@@ -39,15 +38,15 @@ def main():
     logn = int(sys.argv[1]) if len(sys.argv) > 1 else 14
     logq = int(sys.argv[2]) if len(sys.argv) > 2 else 438
     B = int(sys.argv[3]) if len(sys.argv) > 3 else 8
-    impl = sys.argv[4] if len(sys.argv) > 4 else "pallas"
+    impl = sys.argv[4] if len(sys.argv) > 4 else "butterfly"
     t0 = time.time()
-    from gpqhe_tpu.context import HeContext
-    from gpqhe_tpu.ops import limbs as lb
-    from gpqhe_tpu.ops import rns as rns_ops
-    from gpqhe_tpu.ops.modmath import addmod, mulmod
-    from gpqhe_tpu.scheme.engine import CKKS
-    from gpqhe_tpu.substrate.surf import Surf
-    from gpqhe_tpu.utils.xla import enable_persistent_cache
+    from gpqhe_jax.context import HeContext
+    from gpqhe_jax.ops import limbs as lb
+    from gpqhe_jax.ops import rns as rns_ops
+    from gpqhe_jax.ops.modmath import addmod, mulmod
+    from gpqhe_jax.scheme.engine import CKKS
+    from gpqhe_jax.substrate.surf import Surf
+    from gpqhe_jax.utils.xla import enable_persistent_cache
     enable_persistent_cache()
 
     ctx = HeContext(logn=logn, q=1 << logq, slots=16, Delta=1 << 50)
@@ -61,8 +60,8 @@ def main():
           flush=True)
 
     ring = eng.ring
-    ring.prepare(dim_m, folds=(4, 3, 4 * B, 3 * B))
-    ring.prepare(dim_s, folds=(1, 2, B, 2 * B))
+    ring.prepare(dim_m)
+    ring.prepare(dim_s)
     bam, plm = ring.ba(dim_m), ring.recon(dim_m)
     bas, pls = ring.ba(dim_s), ring.recon(dim_s)
     r2m = jnp.array(ctx.poly.basis(dim_m).r2)

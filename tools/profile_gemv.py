@@ -6,7 +6,7 @@ At slots=16 the hoisted gemv (algo/linalg.py gemv_hoisted) is:
   n2=4 x giant step (lax.scan over n1=4 baby steps + ONE divide-round)
   3 x outer rot (full key switch)  +  3 x add  +  1 x rs
 This times each jitted piece warm and checks the sum against the composed
-latency, so the 32 ms headline is attributed (ref: src/he-algo.c:47-93 —
+latency, so the headline gemv latency is attributed (ref: src/he-algo.c:47-93 —
 the reference does a FULL key switch per baby step instead).
 
 Usage: python tools/profile_gemv.py [logn] [logq] [slots]
@@ -44,16 +44,16 @@ def main():
     logq = int(sys.argv[2]) if len(sys.argv) > 2 else 438
     slots = int(sys.argv[3]) if len(sys.argv) > 3 else 16
     t0 = time.time()
-    from gpqhe_tpu.algo.linalg import HoistedGemvPlan, gemv
-    from gpqhe_tpu.context import HeContext
-    from gpqhe_tpu.ring import sample as smp
-    from gpqhe_tpu.scheme.engine import CKKS
-    from gpqhe_tpu.substrate.surf import Surf
-    from gpqhe_tpu.utils.xla import enable_persistent_cache
+    from gpqhe_jax.algo.linalg import HoistedGemvPlan, gemv
+    from gpqhe_jax.context import HeContext
+    from gpqhe_jax.ring import sample as smp
+    from gpqhe_jax.scheme.engine import CKKS
+    from gpqhe_jax.substrate.surf import Surf
+    from gpqhe_jax.utils.xla import enable_persistent_cache
     enable_persistent_cache()
 
     ctx = HeContext(logn=logn, q=1 << logq, slots=slots, Delta=1 << 50)
-    eng = CKKS(ctx, rng=Surf(), ntt_impl="pallas")
+    eng = CKKS(ctx, rng=Surf())
     pk, sk = eng.keypair()
     rk = eng.genrk(sk)
     m1 = smp.sample_z01vec(eng.rng, ctx.slots)
@@ -80,7 +80,7 @@ def main():
     c1p, c0p = prep(ct.c0, ct.c1)
     ptx, ptb = plan.pack_slab(eng, l, 0)
     s0, s1 = step(c1p, c0p, ptx, ptb, rk0, rk1)
-    from gpqhe_tpu.scheme.types import Ciphertext
+    from gpqhe_jax.scheme.types import Ciphertext
     inner = Ciphertext(l=l, nu=1.0, B=1.0, c0=s0, c1=s1)
 
     rows = [

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Stage-by-stage attribution of the mult+rescale latency on the real TPU.
+"""Stage-by-stage attribution of the mult+rescale latency on the default device.
 
 The fused he_mul program is ONE XLA program; to attribute its time this tool
 rebuilds each pipeline stage as its own jitted program with the real shapes
@@ -37,15 +37,15 @@ def timeit(fn, args, iters=10, warmup=2):
 def main():
     logn = int(sys.argv[1]) if len(sys.argv) > 1 else 14
     logq = int(sys.argv[2]) if len(sys.argv) > 2 else 438
-    impl = sys.argv[3] if len(sys.argv) > 3 else "pallas"
+    impl = sys.argv[3] if len(sys.argv) > 3 else "butterfly"
     t0 = time.time()
-    from gpqhe_tpu.context import HeContext
-    from gpqhe_tpu.ops import limbs as lb
-    from gpqhe_tpu.ops import rns as rns_ops
-    from gpqhe_tpu.ops.modmath import addmod, mulmod
-    from gpqhe_tpu.ring import sample as smp
-    from gpqhe_tpu.scheme.engine import CKKS
-    from gpqhe_tpu.substrate.surf import Surf
+    from gpqhe_jax.context import HeContext
+    from gpqhe_jax.ops import limbs as lb
+    from gpqhe_jax.ops import rns as rns_ops
+    from gpqhe_jax.ops.modmath import addmod, mulmod
+    from gpqhe_jax.ring import sample as smp
+    from gpqhe_jax.scheme.engine import CKKS
+    from gpqhe_jax.substrate.surf import Surf
 
     ctx = HeContext(logn=logn, q=1 << logq, slots=16, Delta=1 << 50)
     eng = CKKS(ctx, rng=Surf(), ntt_impl=impl)
@@ -65,8 +65,8 @@ def main():
     print(f"[{time.time()-t0:.0f}s] keys+cts ready", flush=True)
 
     ring = eng.ring
-    ring.prepare(dim_m, folds=(4, 3))
-    ring.prepare(dim_s, folds=(1, 2))
+    ring.prepare(dim_m)
+    ring.prepare(dim_s)
     bam, plm = ring.ba(dim_m), ring.recon(dim_m)
     bas, pls = ring.ba(dim_s), ring.recon(dim_s)
     ba8, pl8 = ring.ba(ctx.dim), ring.recon(ctx.dim)
@@ -171,7 +171,7 @@ def main():
     fused = eng.mul_step_fn(l)
     args = (ct1.c0, ct1.c1, ct2.c0, ct2.c1, rlk.p0hat, rlk.p1hat)
     t_fused = timeit(fused, args)
-    from gpqhe_tpu.scheme.types import Ciphertext
+    from gpqhe_jax.scheme.types import Ciphertext
     t_mulrs = timeit(
         lambda *a: eng.mul_rs(Ciphertext(l=l, nu=1.0, B=0.0, c0=a[0], c1=a[1]),
                               Ciphertext(l=l, nu=1.0, B=0.0, c0=a[2], c1=a[3]),
